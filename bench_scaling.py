@@ -1,10 +1,8 @@
-"""Scaling-efficiency harness: rays/s across mesh sizes (BASELINE north
-star: >=90% efficiency from 1 chip -> 1 host -> N hosts).
+"""Scaling-efficiency harness: rays/s across mesh sizes.
 
-On real TPU hardware this measures wall-clock rays/s for the GSPMD
+On a multi-GPU host this measures wall-clock rays/s for the GSPMD
 auto-sharded renderer over 1, 2, 4, ... device meshes and reports
-efficiency relative to the single-device rate. This image exposes one
-TPU chip, so hardware scaling cannot be measured here; run with
+efficiency relative to the single-device rate. Run with
 JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 to
 exercise the same code path on a virtual mesh (correctness + collective
 structure; virtual-device wall-clock shares host cores and is NOT a
@@ -30,15 +28,15 @@ def main() -> None:
     ap.add_argument("--spp", type=int, default=1)
     args = ap.parse_args()
 
-    from raytracingengine_tpu.utils.tpu import setup_compile_cache
+    from raytracingengine.utils.compile_cache import setup_compile_cache
 
     setup_compile_cache()
     import jax.numpy as jnp
 
-    from raytracingengine_tpu.parallel.mesh import make_mesh
-    from raytracingengine_tpu.render.config import RenderConfig
-    from raytracingengine_tpu.render.pipeline import render_hdr
-    from raytracingengine_tpu.scenes.builders import head_box_scene
+    from raytracingengine.parallel.mesh import make_mesh
+    from raytracingengine.render.config import RenderConfig
+    from raytracingengine.render.pipeline import render_hdr
+    from raytracingengine.scenes.builders import head_box_scene
 
     devices = jax.devices()
     n = len(devices)

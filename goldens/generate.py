@@ -20,13 +20,13 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raytracingengine_tpu.golden.reference import (  # noqa: E402
+from raytracingengine.golden.reference import (  # noqa: E402
     GOLDEN_OPERATORS,
     g_to_uint8,
     golden_from_scene,
 )
-from raytracingengine_tpu.imageio import write_ppm  # noqa: E402
-from raytracingengine_tpu.scenes.builders import (  # noqa: E402
+from raytracingengine.imageio import write_ppm  # noqa: E402
+from raytracingengine.scenes.builders import (  # noqa: E402
     baseline_sphere_scene,
     glass_sphere_scene,
     head_box_scene,

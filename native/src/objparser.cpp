@@ -6,7 +6,7 @@
 // indices, polygon fan triangulation — the reference passes
 // triangulate=true), tracks usemtl indices. Written from scratch; no
 // tinyobj code. Output layout mirrors the Python loader
-// (raytracingengine_tpu/imageio/obj.py) exactly: flat float64 vertices,
+// (raytracingengine/imageio/obj.py) exactly: flat float64 vertices,
 // flat int64 triangle indices, int32 per-face material ids.
 
 #include <cstdint>

@@ -3,7 +3,7 @@
 // dumps raw fp64 HDR buffers, so the JAX renderer can be compared against the
 // real C++ engine rather than a re-derived oracle.
 //
-// Scenes mirror raytracingengine_tpu.scenes.builders:
+// Scenes mirror raytracingengine.scenes.builders:
 //   head_box          — main()'s HEAD scene (RaytracingEngine.cpp:216-290) with
 //                       the missing box.obj replaced by the same procedural
 //                       cube the JAX build uses (scenes/assets.cube_mesh(4.0)).
@@ -218,13 +218,11 @@ int main(int argc, char** argv) {
     renderAndDump("baseline_spheres_256", baselineSphereScene(256, 256), 256, 256);
     renderAndDump("glass_256", glassScene(256, 256), 256, 256);
     renderAndDump("dense_mesh_128", denseMeshScene(128, 128), 128, 128);
-    // Full-resolution dense-mesh parity (VERDICT r04 task #7): the
-    // treelet-scan + blocked-adjoint path gets the same pixel count of
+    // Full-resolution dense-mesh parity: the same pixel count of
     // real-engine scrutiny as the box scenes.
     renderAndDump("dense_mesh_512", denseMeshScene(512, 512), 512, 512);
-    // HBM-streamed-scale parity: 50,800 triangles (ni=128, nj=200) — the
-    // scene size that exercises chain_trace_streamed_pallas past the
-    // 8,192-primitive SMEM ceiling (Shape.h:269-300 is size-unbounded).
+    // Large-mesh parity: 50,800 triangles (ni=128, nj=200); the
+    // reference's Model loop is size-unbounded (Shape.h:269-300).
     renderAndDump("dense_mesh_streamed_256",
                   denseMeshScene(256, 256, 128, 200), 256, 256);
     return 0;

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from raytracingengine_tpu.render.aov import render_aovs
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
+from raytracingengine.render.aov import render_aovs
+from raytracingengine.scenes.builders import baseline_sphere_scene
 
 
 def test_aov_shapes_and_ranges():

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.cli import main
-from raytracingengine_tpu.imageio import read_png, read_ppm
-from raytracingengine_tpu.scenes.config import scene_from_dict
+from raytracingengine.cli import main
+from raytracingengine.imageio import read_png, read_ppm
+from raytracingengine.scenes.config import scene_from_dict
 
 
 def test_scene_from_dict_roundtrip():
@@ -87,7 +87,7 @@ def test_cli_aov(tmp_path):
 
 
 def test_cli_json_model_obj(tmp_path):
-    from raytracingengine_tpu.scenes.assets import cube_obj_text
+    from raytracingengine.scenes.assets import cube_obj_text
 
     (tmp_path / "box.obj").write_text(cube_obj_text(2.0))
     scene_json = {
@@ -99,7 +99,7 @@ def test_cli_json_model_obj(tmp_path):
     }
     sp = tmp_path / "scene.json"
     sp.write_text(json.dumps(scene_json))
-    from raytracingengine_tpu.scenes.config import load_scene_json
+    from raytracingengine.scenes.config import load_scene_json
 
     scene, camera = load_scene_json(str(sp))
     assert len(scene.triangles) == 12

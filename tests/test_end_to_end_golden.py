@@ -1,6 +1,6 @@
 """Full-pipeline LDR parity: render -> tonemap -> uint8 -> PPM bytes.
 
-The strongest parity statement: the TPU fp32 pipeline and the fp64
+The strongest parity statement: the JAX fp32 pipeline and the fp64
 golden oracle must agree at the *output byte* level — every uint8 channel
 within one quantization step, and the PPM container byte-exact given the
 same pixels (BASELINE 'bit-faithful image' criterion at LDR precision).
@@ -8,16 +8,16 @@ same pixels (BASELINE 'bit-faithful image' criterion at LDR precision).
 
 import numpy as np
 
-from raytracingengine_tpu.golden.reference import (
+from raytracingengine.golden.reference import (
     GOLDEN_OPERATORS,
     g_to_uint8,
     golden_from_scene,
 )
-from raytracingengine_tpu.imageio import ppm_bytes
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene, head_box_scene
-from raytracingengine_tpu.tonemap import OPERATORS, to_uint8
+from raytracingengine.imageio import ppm_bytes
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import baseline_sphere_scene, head_box_scene
+from raytracingengine.tonemap import OPERATORS, to_uint8
 
 
 def _ldr_compare(scene, camera, cfg, ops=("aces", "simple", "reinhard_simple")):

@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingengine_tpu.parallel.fault import render_hdr_faulttolerant
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
-from raytracingengine_tpu.utils.checks import assert_finite, checked
+from raytracingengine.parallel.fault import render_hdr_faulttolerant
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import baseline_sphere_scene
+from raytracingengine.utils.checks import assert_finite, checked
 
 
 def test_faulttolerant_matches_plain():
@@ -28,7 +28,7 @@ def test_faulttolerant_retries_transient_failure(monkeypatch):
     scene, camera = baseline_sphere_scene(width=16, height=16, spp=1)
     cfg = RenderConfig(chunk_size=256)
     calls = {"n": 0}
-    import raytracingengine_tpu.parallel.fault as fault_mod
+    import raytracingengine.parallel.fault as fault_mod
 
     real = fault_mod._render_chunk
 

@@ -23,15 +23,15 @@ import os
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.imageio import read_ppm
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import (
+from raytracingengine.imageio import read_ppm
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import (
     baseline_sphere_scene,
     glass_sphere_scene,
     head_box_scene,
 )
-from raytracingengine_tpu.tonemap import OPERATORS, to_uint8
+from raytracingengine.tonemap import OPERATORS, to_uint8
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "goldens")
 SIZE = 128

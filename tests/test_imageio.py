@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.imageio import (
+from raytracingengine.imageio import (
     load_obj,
     ppm_bytes,
     read_ppm,
@@ -13,7 +13,7 @@ from raytracingengine_tpu.imageio import (
     write_png,
     write_ppm,
 )
-from raytracingengine_tpu.scenes.assets import cube_mesh, cube_obj_text
+from raytracingengine.scenes.assets import cube_mesh, cube_obj_text
 
 REF_PPM = "/root/reference/RaytracingEngine/output.ppm"
 
@@ -93,7 +93,7 @@ def test_obj_loader_mtl(tmp_path):
 
 
 def test_native_backend_matches_python(tmp_path):
-    from raytracingengine_tpu import native_bridge
+    from raytracingengine import native_bridge
 
     if not native_bridge.available():
         import pytest
@@ -113,8 +113,8 @@ def test_native_backend_matches_python(tmp_path):
 
 
 def test_native_ppm_png_match_python(tmp_path):
-    from raytracingengine_tpu import native_bridge
-    from raytracingengine_tpu.imageio.png import png_bytes
+    from raytracingengine import native_bridge
+    from raytracingengine.imageio.png import png_bytes
 
     if not native_bridge.available():
         import pytest
@@ -127,7 +127,7 @@ def test_native_ppm_png_match_python(tmp_path):
     native_bridge.write_ppm_native(str(p2), img)
     assert p1.read_bytes() == p2.read_bytes()
     # PNGs decode to identical pixels (compressed bytes may differ)
-    from raytracingengine_tpu.imageio.png import read_png
+    from raytracingengine.imageio.png import read_png
 
     n = tmp_path / "n.png"
     n.write_bytes(native_bridge.png_bytes_native(img))

@@ -1,4 +1,4 @@
-"""End-to-end radiance parity: TPU-path fp32 vs golden fp64 oracle.
+"""End-to-end radiance parity: JAX-path fp32 vs golden fp64 oracle.
 
 Compares `render_rays`/`render_hdr` (wavefront + chain integrators)
 against the naive-recursion fp64 GoldenScene on deterministic center rays
@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.golden.reference import golden_from_scene
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr, render_rays, resolve_mode
-from raytracingengine_tpu.scenes.builders import (
+from raytracingengine.golden.reference import golden_from_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr, render_rays, resolve_mode
+from raytracingengine.scenes.builders import (
     baseline_sphere_scene,
     glass_sphere_scene,
     head_box_scene,
@@ -68,9 +68,9 @@ def test_wavefront_equals_chain_on_opaque():
 
 
 def test_sky_only_scene():
-    from raytracingengine_tpu.scene import SceneBuilder
-    from raytracingengine_tpu.core.camera import Camera
-    from raytracingengine_tpu.render.shading import sky_color
+    from raytracingengine.scene import SceneBuilder
+    from raytracingengine.core.camera import Camera
+    from raytracingengine.render.shading import sky_color
 
     scene = SceneBuilder().build()
     camera = Camera.create((0, 0, 0), focal=16, width=8, height=8, spp=1)

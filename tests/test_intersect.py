@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingengine_tpu.geometry.intersect import (
+from raytracingengine.geometry.intersect import (
     all_distances,
     any_hit_before,
     closest_hit,
@@ -13,10 +13,10 @@ from raytracingengine_tpu.geometry.intersect import (
     FAMILY_SPHERE,
     FAMILY_TRIANGLE,
 )
-from raytracingengine_tpu.geometry.materials import Material
-from raytracingengine_tpu.golden.reference import golden_from_scene
-from raytracingengine_tpu.scene import SceneBuilder
-from raytracingengine_tpu.core.camera import Camera
+from raytracingengine.geometry.materials import Material
+from raytracingengine.golden.reference import golden_from_scene
+from raytracingengine.scene import SceneBuilder
+from raytracingengine.core.camera import Camera
 
 
 def _mixed_scene(pad=None):
@@ -49,9 +49,9 @@ def test_closest_hit_matches_golden():
     for i in range(o.shape[0]):
         gh = golden.intersect_closest(o[i].astype(np.float64), d[i].astype(np.float64))
         if gh is None:
-            assert not bool(hit.valid[i]), f"ray {i}: golden miss but TPU hit"
+            assert not bool(hit.valid[i]), f"ray {i}: golden miss but JAX hit"
         else:
-            assert bool(hit.valid[i]), f"ray {i}: golden hit but TPU miss"
+            assert bool(hit.valid[i]), f"ray {i}: golden hit but JAX miss"
             np.testing.assert_allclose(hit.t[i], gh.t, rtol=2e-4, atol=1e-4)
             np.testing.assert_allclose(hit.normal[i], gh.normal, rtol=1e-3, atol=2e-3)
             np.testing.assert_allclose(hit.albedo[i], gh.albedo, atol=1e-6)

@@ -8,14 +8,14 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from raytracingengine_tpu.inverse import combine, fit, partition
-from raytracingengine_tpu.inverse.checkpoint import (
+from raytracingengine.inverse import combine, fit, partition
+from raytracingengine.inverse.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import baseline_sphere_scene
 
 
 def _perturb(scene, d_albedo=0.15, d_intensity=12.0):
@@ -40,7 +40,7 @@ def test_recover_albedo_and_intensity():
     loss0 = float(jnp.mean((render_hdr(scene0, camera, cfg) - target) ** 2))
     # Optimize only the quantities that were perturbed (masked adam), the
     # standard move when geometry should stay pinned.
-    from raytracingengine_tpu.inverse.params import select
+    from raytracingengine.inverse.params import select
 
     params0, _ = partition(scene0)
     m_albedo = select(params0, ["spheres.materials.color"])

@@ -20,17 +20,17 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from raytracingengine_tpu.inverse import (
+from raytracingengine.inverse import (
     combine,
     fit,
     make_train_step,
     masked_optimizer,
     partition,
 )
-from raytracingengine_tpu.inverse.params import select
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
+from raytracingengine.inverse.params import select
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import baseline_sphere_scene
 
 
 def test_recover_light_position():

@@ -22,11 +22,11 @@ Three gates:
 
 import numpy as np
 
-from raytracingengine_tpu.golden.reference import golden_from_scene
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr, resolve_mode
-from raytracingengine_tpu.scene import Material, SceneBuilder
-from raytracingengine_tpu.core.camera import Camera
+from raytracingengine.golden.reference import golden_from_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr, resolve_mode
+from raytracingengine.scene import Material, SceneBuilder
+from raytracingengine.core.camera import Camera
 
 SIZE = 24
 DEPTH = 16

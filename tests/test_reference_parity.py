@@ -19,10 +19,10 @@ Skipped when the dumps are absent (run refbuild/build.sh && refbuild/rte_parity)
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.golden import refdump
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import (
+from raytracingengine.golden import refdump
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import (
     baseline_sphere_scene,
     glass_sphere_scene,
     head_box_scene,
@@ -33,24 +33,11 @@ needs = lambda name: pytest.mark.skipif(
 )
 
 
-def _ldr_bytes(img):
-    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.int32)
-
-
 def _compare(name, scene, camera, max_bad_frac=0.0, p999=5e-5):
     ref = refdump.load_dump(name)
     img = np.asarray(render_hdr(scene, camera, RenderConfig()), np.float64)
-    assert img.shape == ref.shape
-    diff = np.abs(img - ref)
-    assert np.percentile(diff, 99.9) < p999, (
-        f"{name}: p99.9 HDR diff {np.percentile(diff, 99.9):.2e}"
-    )
-    byte_diff = np.abs(_ldr_bytes(img) - _ldr_bytes(ref))
-    bad_frac = float((byte_diff > 1).mean())
-    assert bad_frac <= max_bad_frac, (
-        f"{name}: {bad_frac:.2e} of subpixels differ by >1 LDR byte "
-        f"(budget {max_bad_frac:.2e}); max byte diff {byte_diff.max()}"
-    )
+    fails = refdump.parity_failures(refdump.parity_stats(img, ref), max_bad_frac, p999)
+    assert not fails, f"{name}: {fails}"
 
 
 @needs("baseline_spheres_256")
@@ -79,9 +66,8 @@ def test_head_box_1000_vs_real_engine():
 @needs("dense_mesh_128")
 def test_dense_mesh_vs_real_engine():
     # 6,016-triangle bumpy sphere through the reference's arbitrary-size
-    # Model loop (Shape.h:269-300) — the dense-mesh domain the old
-    # 512-primitive kernel ceiling excluded.
-    from raytracingengine_tpu.scenes.builders import dense_mesh_scene
+    # Model loop (Shape.h:269-300).
+    from raytracingengine.scenes.builders import dense_mesh_scene
 
     scene, cam = dense_mesh_scene(128, 128, spp=1)
     _compare("dense_mesh_128", scene, cam, max_bad_frac=2e-5)
@@ -89,10 +75,9 @@ def test_dense_mesh_vs_real_engine():
 
 @needs("dense_mesh_512")
 def test_dense_mesh_512_vs_real_engine():
-    # Full-resolution dense-mesh parity (VERDICT r04 task #7): the same
-    # per-pixel budgets as the box scenes, at 16x the r4 pixel count, so
-    # the treelet/tie-break machinery faces the same scrutiny.
-    from raytracingengine_tpu.scenes.builders import dense_mesh_scene
+    # Full-resolution dense-mesh parity: the same per-pixel budgets as the
+    # box scenes, at 16x the pixel count of dense_mesh_128.
+    from raytracingengine.scenes.builders import dense_mesh_scene
 
     scene, cam = dense_mesh_scene(512, 512, spp=1)
     _compare("dense_mesh_512", scene, cam, max_bad_frac=2e-5)
@@ -100,11 +85,9 @@ def test_dense_mesh_512_vs_real_engine():
 
 @needs("dense_mesh_streamed_256")
 def test_streamed_mesh_vs_real_engine():
-    # 50,800-triangle mesh — past the 8,192-prim SMEM ceiling, the size
-    # class served by chain_trace_streamed_pallas (r5). The XLA
-    # integrator validated here is itself the oracle the streamed kernel
-    # is pinned against in tests/test_streamed.py, closing the chain
-    # streamed kernel == XLA integrator == real C++ engine.
+    # 50,800-triangle mesh (dump dense_mesh_streamed_256) against the real
+    # engine through the XLA integrator, the reference the Triton kernel
+    # is pinned against (tests/test_hit_kernel.py, chip_smoke.py).
     #
     # Every 8th row (8,192 pixels): the CPU all-pairs oracle at 50.8k
     # primitives costs ~42 GFLOP per 16k-ray chunk — the full frame made
@@ -113,8 +96,8 @@ def test_streamed_mesh_vs_real_engine():
     # mesh/floor/sky/silhouettes.
     import jax.numpy as jnp
 
-    from raytracingengine_tpu.render.pipeline import render_rays
-    from raytracingengine_tpu.scenes.builders import dense_mesh_scene
+    from raytracingengine.render.pipeline import render_rays
+    from raytracingengine.scenes.builders import dense_mesh_scene
 
     scene, cam = dense_mesh_scene(256, 256, spp=1, ni=128, nj=200)
     ref = refdump.load_dump("dense_mesh_streamed_256").reshape(256, 256, 3)
@@ -124,15 +107,9 @@ def test_streamed_mesh_vs_real_engine():
         jnp.asarray(px.ravel()), jnp.asarray(py.ravel())
     )
     img = np.asarray(render_rays(scene, o, d, RenderConfig()), np.float64)
-    ref_s = ref[rows].reshape(-1, 3)
-    diff = np.abs(img - ref_s)
-    assert np.percentile(diff, 99.9) < 5e-5
-    byte_diff = np.abs(_ldr_bytes(img) - _ldr_bytes(ref_s))
-    bad_frac = float((byte_diff > 1).mean())
-    assert bad_frac <= 2e-5, (
-        f"streamed parity: {bad_frac:.2e} subpixels differ "
-        f"(max byte diff {byte_diff.max()})"
-    )
+    stats = refdump.parity_stats(img, ref[rows].reshape(-1, 3))
+    fails = refdump.parity_failures(stats, max_bad_frac=2e-5)
+    assert not fails, f"50.8k-triangle parity: {fails}"
 
 
 @needs("head_box_1080p")

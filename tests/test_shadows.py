@@ -5,19 +5,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingengine_tpu.geometry.intersect import flatten_scene
-from raytracingengine_tpu.geometry.materials import Material
-from raytracingengine_tpu.golden.reference import golden_from_scene
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.render.shading import (
+from raytracingengine.geometry.intersect import flatten_scene
+from raytracingengine.geometry.materials import Material
+from raytracingengine.golden.reference import golden_from_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.render.shading import (
     transmittance_binary,
     transmittance_hard,
     visibility_soft,
 )
-from raytracingengine_tpu.scene import SceneBuilder
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
-from raytracingengine_tpu.core.camera import Camera
+from raytracingengine.scene import SceneBuilder
+from raytracingengine.scenes.builders import baseline_sphere_scene
+from raytracingengine.core.camera import Camera
 
 
 def _transparent_stack_scene():

@@ -15,14 +15,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingengine_tpu.geometry.intersect import flatten_scene
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.render.soft_primary import (
+from raytracingengine.geometry.intersect import flatten_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.render.soft_primary import (
     integrate_chain_soft,
     soft_primary_layers,
 )
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
+from raytracingengine.scenes.builders import baseline_sphere_scene
 
 
 def _cfg(sigma=0.1):

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.golden.reference import GOLDEN_OPERATORS, g_to_uint8
-from raytracingengine_tpu.tonemap.operators import OPERATORS, to_uint8, tonemap_all
+from raytracingengine.golden.reference import GOLDEN_OPERATORS, g_to_uint8
+from raytracingengine.tonemap.operators import OPERATORS, to_uint8, tonemap_all
 
 
 def _hdr_samples():

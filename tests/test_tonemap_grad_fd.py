@@ -20,11 +20,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.golden.reference import golden_from_scene
-from raytracingengine_tpu.render.config import RenderConfig
-from raytracingengine_tpu.render.pipeline import render_hdr
-from raytracingengine_tpu.scenes.builders import baseline_sphere_scene
-from raytracingengine_tpu.tonemap.operators import OPERATORS
+from raytracingengine.golden.reference import golden_from_scene
+from raytracingengine.render.config import RenderConfig
+from raytracingengine.render.pipeline import render_hdr
+from raytracingengine.scenes.builders import baseline_sphere_scene
+from raytracingengine.tonemap.operators import OPERATORS
 
 W = H = 24
 CFG = RenderConfig(chunk_size=W * H, shadow_mode="binary")

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingengine_tpu.core import vecmath as vm
+from raytracingengine.core import vecmath as vm
 
 
 def test_dot_cross():
